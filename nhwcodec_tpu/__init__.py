@@ -1,12 +1,13 @@
-"""nhwcodec_tpu — a TPU-native NHW image codec.
+"""nhwcodec_tpu — the NHW image codec with its plane transforms on an
+accelerator.
 
-A from-scratch JAX/XLA/Pallas re-design of the NHW codec (reference:
+A from-scratch JAX/XLA re-design of the NHW codec (reference:
 rcanut/nhwcodec, a single-threaded C implementation).  Lossy compression of
 512x512 24-bit RGB images via a 2-level integer 5/3-style lifting wavelet
 transform, scalar quantization with pattern-coded special words, positional
 residue side-streams and a static-Huffman entropy coder.
 
-Architecture (TPU-first, not a port):
+Architecture (device-first, not a port):
 
 - ``ops``      device kernels: lifting filterbanks, colorspace, deringing,
                upsampling — vectorized over whole planes and batched with

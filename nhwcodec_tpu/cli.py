@@ -16,7 +16,7 @@ from pathlib import Path
 
 def enc_main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="nhw-enc", description="NHW image encoder (TPU-native)")
+        prog="nhw-enc", description="NHW image encoder")
     ap.add_argument("input", help="512x512 24bpp BMP input")
     ap.add_argument("output", help=".nhw output")
     ap.add_argument("-q", type=int, default=20, metavar="1..23",
@@ -35,7 +35,9 @@ def enc_main(argv=None) -> int:
 
     import nhwcodec_tpu
     from nhwcodec_tpu.utils import bmp
+    from nhwcodec_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     rgb = bmp.read_bmp512(args.input)
     out.write_bytes(nhwcodec_tpu.encode(rgb, args.q))
     return 0
@@ -43,13 +45,15 @@ def enc_main(argv=None) -> int:
 
 def dec_main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="nhw-dec", description="NHW image decoder (TPU-native)")
+        prog="nhw-dec", description="NHW image decoder")
     ap.add_argument("input", help=".nhw input")
     ap.add_argument("output", help="BMP output")
     args = ap.parse_args(argv)
 
     import nhwcodec_tpu
+    from nhwcodec_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     nhwcodec_tpu.decode_to_bmp(args.input, args.output)
     return 0
 

@@ -1,4 +1,4 @@
-"""The full-device encode configuration (VERDICT r4 item 2).
+"""The full-device encode configuration.
 
 ``encode_batch_scans_device(images, quality)`` runs every
 post-transform raster scan of the encoder on the device as batched XLA
@@ -6,10 +6,10 @@ programs (models.device_scans): the E11 cleanup ladders and snap
 passes, the E12 column ladder / classify / positional streams, the E14
 quantizers, the E15 serpentine + stream fixups, and the E16/E17 LL2
 run-delta compressors — symmetric to decode's ``entropy_on_device``.
-The host keeps exactly what VERDICT r4 scoped as host-optional: the E4
-pre-filter, the E10 greedy mark/offset passes (with their transforms),
-the E18 tokenizer, and the container writer.  Output is byte-identical
-to ``models.encoder.encode`` (tests/test_device_scans.py).
+The host keeps the E4 pre-filter, the E10 greedy mark/offset passes
+(with their transforms), the E18 tokenizer, and the container writer.
+Output is byte-identical to ``models.encoder.encode``
+(tests/test_device_scans.py).
 
 Stage-major batching: each host stage runs per image, each device
 stage runs once for the whole batch.  Quality support: 1 <= q <=
@@ -35,7 +35,7 @@ SZ = 65536
 
 
 def supported(quality: int) -> bool:
-    # round-5 full coverage below HIGH1; the q>HIGH1 HQ residue stays
+    # full coverage up to HIGH1; the q>HIGH1 HQ residue stays
     # host-routed
     return 1 <= quality <= T.HIGH1
 
@@ -52,7 +52,7 @@ def encode_batch_scans_device(images: np.ndarray, quality: int = 20
 
     q = quality
     if not supported(q):
-        raise ValueError(f"scans_on_device supports LOW4<q<=HIGH1, got {q}")
+        raise ValueError(f"scans_on_device supports 1<=q<=HIGH1, got {q}")
     ratio = 8
     b = len(images)
 

@@ -7,10 +7,9 @@ The requant block (encoder/nhw_encoder.c:141-283) is:
 
 The first two passes are greedy raster automata with data-dependent
 advancement (they stay on host); everything from the synthesis onward is
-one fused batched device program here:
+one batched device program here:
 
-- synthesis: the fused Pallas level (ops.pallas_dwt.synth_level_pallas)
-  or slice algebra off-chip, plus the driver's LL transpose
+- synthesis: one slice-algebra level plus the driver's LL transpose
 - unmark: the sentinel scatter into the synthesized plane is a fixed
   bijection per region, so it lowers to three strided slice-adds
   (encoder/nhw_encoder.c:183-216)
@@ -20,7 +19,7 @@ one fused batched device program here:
   dependency, so Jacobi iteration (a `lax.while_loop` re-evaluating the
   vectorized decision with the previous iterate's left nudges) reaches
   the exact sequential fixpoint in at most chain-length steps
-- the second-level re-analysis: the fused (j, p) Pallas stage
+- the second-level re-analysis: device_stages' (j, p) stage
 
 Equality vs the host block on real encode states and adversarial planes:
 tests/test_device_requant.py.
@@ -28,12 +27,10 @@ tests/test_device_requant.py.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
-from nhwcodec_tpu.models.device_stages import _resolve_fused, _stage
+from nhwcodec_tpu.models.device_stages import _stage_xla
 from nhwcodec_tpu.models.device_decode import _synth_level
 
 D = 256
@@ -156,8 +153,8 @@ def _ladder(process, jpeg, res256_clean):
     return process, jpeg
 
 
-@functools.partial(jax.jit, static_argnames=("fused",))
-def requant_tail_device(jpeg, process, res256, fused: bool = False):
+@jax.jit
+def requant_tail_device(jpeg, process, res256):
     """The feedback tail after the host's mark + offset(part=1): level-2
     synthesis, unmark, compare ladder, re-analysis — one device program.
 
@@ -166,14 +163,8 @@ def requant_tail_device(jpeg, process, res256, fused: bool = False):
     res256_clean) exactly matching the host sequence
     wavelet_synthesis(256,0) -> unmark_res256 -> requant_scan_ladder ->
     wavelet_analysis(256,1)."""
-    if fused:
-        from nhwcodec_tpu.ops import pallas_dwt
-
-        # the whole tail as ONE VMEM program (synthesis, unmark delta
-        # interleave, per-image ladder while-loop, jp re-analysis)
-        return pallas_dwt.requant_tail_pallas(jpeg, process, res256)
     with jax.named_scope("nhw.requant.synth"):
-        syn = _synth_level(jpeg[:, :D, :D], fused)
+        syn = _synth_level(jpeg[:, :D, :D])
     process = process.at[:, :D, :D].set(syn)
     jpeg = jpeg.at[:, :D, :D].set(_t(syn))
 
@@ -183,7 +174,7 @@ def requant_tail_device(jpeg, process, res256, fused: bool = False):
         process, jpeg = _ladder(process, jpeg, res_clean)
 
     with jax.named_scope("nhw.requant.reanalysis"):
-        j2, p2 = _stage(jpeg[:, :D, :D], fused)
+        j2, p2 = _stage_xla(jpeg[:, :D, :D])
     process = process.at[:, :D, :D].set(p2)
     jpeg = jpeg.at[:, :D, :D].set(j2)
     return jpeg, process, res_clean

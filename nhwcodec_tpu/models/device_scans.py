@@ -1,11 +1,10 @@
 """Device formulations of the encoder's post-transform raster scans.
 
-The round-5 completion of the encode side's device story (VERDICT r4
-item 2): the E11 band cleanup ladders, the E14 quantizer, the E15
-serpentine/select stream fixups and the E12 positional streams run as
-batched XLA programs, bit-exact vs the host C scans (ops/quantize.py,
-models/encoder.py), so a full-device encode configuration exists
-symmetric to decode's ``entropy_on_device``.
+The encode side's device scans: the E11 band cleanup ladders, the E14
+quantizer, the E15 serpentine/select stream fixups and the E12
+positional streams run as batched XLA programs, bit-exact vs the host C
+scans (ops/quantize.py, models/encoder.py), so a full-device encode
+configuration exists symmetric to decode's ``entropy_on_device``.
 
 Design notes (each pass analyzed against the reference semantics,
 encoder/nhw_encoder.c:1893-2252 / encoder/image_processing.c:185-521):

@@ -1044,7 +1044,7 @@ def encode_device(pixels: np.ndarray, quality: int = 20,
                   device_pack: bool = True) -> bytes:
     """Encode with the transform front end on the device: exact
     colorspace (ops.colorspace_device) and both analysis levels
-    (models.device_stages) run on the chip; the raster scans and entropy
+    (models.device_stages) run on the device; the raster scans and entropy
     stage consume the device outputs, and the Huffman bit packing runs
     as a device prefix-sum program (``device_pack=True`` default).
     Byte-identical to encode().

@@ -14,8 +14,9 @@ per batch.
 Integer semantics match the reference filterbank exactly
 (decoder/wavelet_filterbank.c:52-235, decoder/filters.c:143-194): int32
 arithmetic with int16 wraparound at every point the C stores to ``short``.
-The final YUV->RGB runs in float32 on TPU (the reference uses C doubles;
-the host path in ``models.decoder`` keeps float64 bit-exactness).
+The final YUV->RGB here runs in float32 (the reference uses C doubles; the
+bit-exact device form is ``ops.colorspace_device``, and the host path in
+``models.decoder`` keeps float64 bit-exactness).
 """
 
 from __future__ import annotations
@@ -232,29 +233,3 @@ def encode_transform(rgb: jnp.ndarray):
 
 
 encode_transform_jit = jax.jit(encode_transform)
-
-
-def encode_transform_pallas(rgb: jnp.ndarray):
-    """encode_transform with the fused Pallas filterbank for every
-    level (ops.pallas_dwt.analysis_level_pallas keeps each plane in
-    VMEM — measured 4.5x the XLA slice-algebra path on v5e).  The
-    128-wide UV second level (m=64) uses the kernel's lane-select
-    formulation since Mosaic cannot concatenate 64-lane tile offsets.
-    Bit-identical to encode_transform."""
-    from nhwcodec_tpu.ops import pallas_dwt
-
-    y, u, v = rgb_to_yuv420_device(rgb)
-    y = y.astype(jnp.int16)
-    l1 = pallas_dwt.analysis_level_pallas(y)
-    l2 = pallas_dwt.analysis_level_pallas(l1[..., :D, :D])
-    yc = l1.at[..., :D, :D].set(l2)
-
-    def uv_level(p):
-        c1 = pallas_dwt.analysis_level_pallas(p.astype(jnp.int16))
-        c2 = pallas_dwt.analysis_level_pallas(c1[..., :128, :128])
-        return c1.at[..., :128, :128].set(c2)
-
-    return yc, uv_level(u), uv_level(v)
-
-
-encode_transform_pallas_jit = jax.jit(encode_transform_pallas)

@@ -3,7 +3,7 @@
  * These mirror the verified Python implementations in ops/ (same
  * behavior contracts, cited there against the reference file:line); the
  * raster-carried scans are irreducibly sequential, so the host runtime
- * runs them natively while the plane transforms stay on the TPU.
+ * runs them natively while the plane transforms run on the device.
  */
 #include <pthread.h>
 #include <stdint.h>

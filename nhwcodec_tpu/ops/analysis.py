@@ -5,7 +5,7 @@ composed by encoder/wavelet_analysis (encoder/wavelet_filterbank.c:52-302).
 The reference walks rows with scalar loops and an error-feedback dither
 whose state is local to each coefficient (the dither fed into slot k+1
 depends only on the raw value at slot k), so every filter vectorizes into
-pure slice expressions over whole planes — one VPU pass per subband on TPU.
+pure slice expressions over whole planes — one elementwise pass per subband.
 
 int16 semantics: the C stores into ``short`` at every output; arithmetic
 here runs in int32/int64 with ``wrap16`` at exactly those points.

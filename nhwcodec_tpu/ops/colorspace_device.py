@@ -4,8 +4,8 @@ Replicates encoder/colorspace.c:55-260 (downsample_YUV420) exactly on
 device: the double-precision sums, the float32 chroma intermediate, the
 sign-dependent +128.5f/+128.4f rounding, the LOW1-LOW3 gains and the
 integer Qtz path.  The float semantics run as an exact fixed-point
-replay over uint64 lanes (identical bits on CPU jax, TPU and the numpy
-host oracle); ops.softfloat documents and tests the underlying generic
+replay over uint64 lanes (identical bits on every JAX backend and the
+numpy host oracle); ops.softfloat documents and tests the underlying generic
 IEEE emulation the replay was derived from and proven against.
 
 Public entry: ``rgb_to_yuv420_device_exact(rgb, quality)`` — jitted per
@@ -267,44 +267,6 @@ def _down420(c, xp):
     return o.astype(xp.uint8)
 
 
-@functools.lru_cache(maxsize=None)
-def _down420_mats():
-    """The 4:2:0 decimating [1,2,1] convolutions as dense matrices so
-    the downsample rides the MXU instead of lane-strided slices (which
-    lower as repeated relayouts on TPU).  All sums are < 2^11, exact in
-    float32; the seam (first output) uses weights [1,1] with a >>1."""
-    d = np.zeros((512, 256), np.float32)
-    d[0, 0] = d[1, 0] = 1.0
-    for j in range(1, 256):
-        d[2 * j - 1, j] = 1.0
-        d[2 * j, j] = 2.0
-        d[2 * j + 1, j] = 1.0
-    return d
-
-
-def _down420_mxu(c, xp):
-    """MXU-backed exact twin of _down420: (..., 512, 512) uint8 ->
-    (..., 256, 256) uint8 (encoder/colorspace.c:220-256)."""
-    import jax.numpy as jnp
-
-    d = jnp.asarray(_down420_mats()).astype(jnp.bfloat16)
-    # Bit-exactness: both matmul inputs are integers <= 255 (8-bit
-    # mantissa, exact in bf16 — h below is a rounded average, also
-    # <= 255), weights are {1,2}, and every partial sum < 2^11 is exact
-    # in the f32 accumulator — so the native single-pass bf16 MXU path
-    # is exact and ~4x the multi-pass HIGHEST-f32 form this replaces
-    cf = c.astype(jnp.bfloat16)
-    s1 = jnp.matmul(cf, d, preferred_element_type=jnp.float32)
-    s1 = s1.astype(xp.int32)
-    lane = jax.lax.broadcasted_iota(xp.int32, s1.shape, s1.ndim - 1)
-    h = xp.where(lane == 0, (s1 + 1) >> 1, (s1 + 2) >> 2)
-    s2 = jnp.matmul(d.T, h.astype(jnp.bfloat16),
-                    preferred_element_type=jnp.float32).astype(xp.int32)
-    row = jax.lax.broadcasted_iota(xp.int32, s2.shape, s2.ndim - 2)
-    o = xp.where(row == 0, (s2 + 1) >> 1, (s2 + 2) >> 2)
-    return o.astype(xp.uint8)
-
-
 def rgb_to_yuv420_host_exact(rgb: np.ndarray, quality: int):
     """Numpy replay of the device program (same code, xp=np) — used by
     the exhaustiveness tests to cross-check the jax path."""
@@ -356,7 +318,7 @@ def _jitted_limb():
             u = _clip_u8(u, jnp).astype(jnp.uint8)
             v = _clip_u8(v, jnp).astype(jnp.uint8)
         with jax.named_scope("nhw.colorspace.down420"):
-            return y, _down420_mxu(u, jnp), _down420_mxu(v, jnp)
+            return y, _down420(u, jnp), _down420(v, jnp)
 
     return jax.jit(run)
 

@@ -2,9 +2,9 @@
 
 Re-expresses the bit-exact fixed-point colorspace replay
 (ops.colorspace_device, proven over all 2^24 inputs) in *uint32 limb
-pairs* so the whole chain runs on native 32-bit VPU lanes — no x64
-tracing, no XLA int64 emulation, and Mosaic-compatible (TPU Pallas has
-no 64-bit integer lanes).  Covers the two headline paths:
+pairs* so the whole chain runs on native 32-bit lanes — no x64
+tracing and no 64-bit integer arithmetic.  Covers the two headline
+paths:
 
 - encode q >= NORM: the no-gain float matrix of ``downsample_YUV420``
   (encoder/colorspace.c:55-260) — the double-rounded Y chain and the
@@ -32,7 +32,7 @@ Value representation: unsigned pairs ``(hi, lo)`` of uint32 (value =
 hi * 2^32 + lo) at scale 2^56 (encode) / 2^54 (decode), signed values
 as (sign-mask, magnitude-pair).  All helpers are ``xp``-generic: the
 numpy replay is the exhaustive-proof harness, the jnp trace is the
-device program (and the body of the fused Pallas kernel).
+device program.
 """
 
 from __future__ import annotations
@@ -104,8 +104,7 @@ def _rne53(hi, lo, xp):
     max(bitlen - 53, 0) <= 11, entirely inside the low limb.
 
     All shift amounts are clamped in int32 and cast to uint32 only at
-    the shift itself: Mosaic has no unsigned vector min/max
-    (arith.minui fails to legalize)."""
+    the shift itself."""
     one = xp.uint32(1)
     sh = xp.maximum(_bl32(hi, xp) - 21, 0).astype(xp.uint32)
     mask = (one << sh) - one
@@ -120,7 +119,7 @@ def _rne53(hi, lo, xp):
 
 def _shr_pair(hi, lo, sh, xp):
     """Logical right shift of a pair by int32 sh in [0, 63] (per-lane);
-    clamps stay in int32 (Mosaic has no unsigned vector min/max)."""
+    clamps stay in int32."""
     shc = xp.minimum(sh, 31).astype(xp.uint32)
     sh2 = xp.minimum(xp.maximum(sh - 32, 0), 31).astype(xp.uint32)
     lo_small = (lo >> shc) | xp.where(

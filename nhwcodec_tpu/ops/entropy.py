@@ -11,7 +11,7 @@ LUT-decoded symbol indices >= ZONE1 are shifted by UNZONE1.
 The per-symbol state machine (run/select-word reinsertion consulting decoded
 history, decoder/compress_pixel.c:296-341) is inherently serial; this host
 implementation is the bit-exact reference path.  The throughput path batches
-images across host workers while the TPU runs the plane transforms.
+images across host workers while the device runs the plane transforms.
 """
 
 from __future__ import annotations

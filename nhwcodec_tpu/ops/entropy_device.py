@@ -1,9 +1,9 @@
 """Device-side entropy-coding building blocks (JAX/XLA).
 
 The reference's bit-serial Huffman packer
-(encoder/compress_pixel.c:280-361) advances one symbol at a time; on TPU
-the same packing is a *parallel prefix* computation (SURVEY.md section 5,
-long-context row): a cumulative sum over code lengths yields every
+(encoder/compress_pixel.c:280-361) advances one symbol at a time; on a
+device the same packing is a *parallel prefix* computation (SURVEY.md
+section 5, long-context row): a cumulative sum over code lengths yields every
 symbol's start bit, and each code then scatters into at most two 32-bit
 words.  Bit contributions never overlap, so the scatter-OR is a
 scatter-add — one fused XLA program for the whole stream.
@@ -99,8 +99,7 @@ def _pack_rows(pos, zone, valid):
     code/length lookup (15-bit zone escape for positions 110..173 when
     the row's zone flag is set), prefix-sum of lengths for start bits,
     and a scatter-add into 32-bit words.  The scatter stays 1-D (rows
-    flattened into one index space) — TPU lowers batched 2-D scatters
-    ~100x slower than flat 1-D ones."""
+    flattened into one index space)."""
     n_words = _pack_rows_n_words(pos.shape[1])
     codes_t = jnp.asarray(_CODES354, jnp.uint32)
     lens_t = jnp.asarray(_LENS354, jnp.int32)

@@ -371,7 +371,7 @@ def wavlts2packet(im_nhw: np.ndarray, nhw_select1: int, nhw_select2: int,
 
     ``device_pack``: route the bit packing through the device prefix-sum
     packer (ops.entropy_device) — the host walks the run/select token
-    automaton (nhw_tokenize), the chip packs the codes.  Byte-identical
+    automaton (nhw_tokenize), the device packs the codes.  Byte-identical
     to the host packer (tests/test_entropy_device.py)."""
     from nhwcodec_tpu import native
 

@@ -5,7 +5,7 @@ upfilter53VI) composed by decoder/wavelet_filterbank.c:52-235.  The reference
 walks one row at a time with scalar loops; here every filter is a pure
 elementwise/slice expression over an (..., M) low band and (..., M) high
 band, so a whole plane (and a whole batch, via ``vmap``) synthesizes in one
-fused VPU pass on TPU.
+fused elementwise pass.
 
 int16 semantics: the C code stores every intermediate into ``short``.  All
 arithmetic here runs in int32 and is wrapped to int16 exactly at the points

@@ -1539,7 +1539,7 @@ def block_variance_avg(yplane: np.ndarray) -> np.ndarray:
 
     All reads come from an unmodified snapshot and every write site is
     distinct, so the whole pass is one masked 3x3 smoothing — pure
-    vectorized selects (TPU-trivial), no scan:
+    vectorized selects, no scan:
 
     - pass 1: blocks with integer variance < 1500 smooth their 6x6
       interior;

@@ -2,11 +2,11 @@
 
 The reference's colorspace stages compute in C ``double``/``float`` with
 result-critical roundings (encoder/colorspace.c:55-260 rounding constants,
-decoder/nhw_decoder_cli.c:133-291 inverse matrices).  TPUs have no f64, and
-native f32 is vulnerable to FMA contraction differences across backends —
-so the bit-exact device path emulates the exact IEEE arithmetic with pure
-int64 element-wise ops (VPU-friendly, platform-independent: the same bits
-on CPU jax, TPU, and the numpy host path).
+decoder/nhw_decoder_cli.c:133-291 inverse matrices).  Device f64 is slow
+or absent, and native f32 is vulnerable to FMA contraction differences
+across backends — so the bit-exact device path emulates the exact IEEE
+arithmetic with pure int64 element-wise ops (platform-independent: the
+same bits on every JAX backend and the numpy host path).
 
 A float is an (s, m, e) triple of integer arrays:
   value = (-1)^s * m * 2^(e - (P-1)),   m == 0 or 2^(P-1) <= m < 2^P
@@ -192,7 +192,7 @@ def mul_small_int(c: tuple[int, int, int], x, xp):
 
     The exact product m_c * x fits int64 (<= 63 bits), so one multiply +
     one RNE renormalize reproduces the double product — no per-pixel
-    gathers (gathers are the slow path on TPU VPUs)."""
+    gathers."""
     sc, mc, ec = c
     m = xp.int64(mc) * x.astype(xp.int64)
     s = xp.full(m.shape, sc, dtype=xp.int64)

@@ -1,6 +1,6 @@
 """Batch codec API: mesh-sharded device transforms + host entropy pool.
 
-The TPU-native equivalents of the reference's absent runtime
+The device-mesh equivalents of the reference's absent runtime
 (SURVEY.md sections 2.4, 5):
 
 - data-parallel batching: device transforms are pjit-sharded over the
@@ -34,6 +34,17 @@ import numpy as np
 _POOLS: dict[int, ProcessPoolExecutor] = {}
 
 
+def _worker_init() -> None:
+    """Keep pool workers on JAX's CPU backend: they run host scans only,
+    and a worker that opened the card would reserve most of its memory
+    and starve the parent's device programs."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import sys
+
+    if "jax" in sys.modules:  # imported while the spawn child started
+        sys.modules["jax"].config.update("jax_platforms", "cpu")
+
+
 def _pool(workers: int | None) -> ProcessPoolExecutor:
     n = workers or os.cpu_count() or 1
     p = _POOLS.get(n)
@@ -44,7 +55,8 @@ def _pool(workers: int | None) -> ProcessPoolExecutor:
         # to hold (jax, XLA); the pool is persistent so the startup cost
         # amortizes away
         p = _POOLS[n] = ProcessPoolExecutor(
-            max_workers=n, mp_context=multiprocessing.get_context("spawn"))
+            max_workers=n, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init)
     return p
 
 
@@ -62,7 +74,7 @@ def _pool_map(workers: int | None, fn, jobs) -> list:
         return list(_pool(workers).map(fn, jobs))
 
 
-# persistent SharedMemory arena (round 5, VERDICT r4 item 4d): creating
+# persistent SharedMemory arena: creating
 # + page-faulting + unlinking a fresh 37MB segment per batch cost
 # ~15-25 ms/call; the arena is grow-only and its stable name lets the
 # workers cache their attachment

@@ -7,8 +7,8 @@ sharded across it, per-image compute replicated.  Throughput metrics are
 reduced with ``psum`` over the mesh so every host sees the aggregate.
 
 Static tables (quantization ladders, Huffman codebooks) are module
-constants — XLA replicates them to every device at compile time, which is
-the TPU-native version of the reference's implicit "everything in one
+constants — XLA replicates them to every device at compile time, the
+device-mesh version of the reference's implicit "everything in one
 address space" (the reference has no distribution at all).
 """
 
@@ -39,7 +39,7 @@ def shard_batch(mesh: Mesh, *arrays, axis: str = "data"):
 @partial(jax.jit, static_argnames=("axis",))
 def _decode_step_psum(y, u, v, axis: str):
     rgb = transform.decode_transform(y, u, v)
-    # aggregate megapixels decoded across the mesh (ICI psum)
+    # aggregate megapixels decoded across the mesh
     mp = jnp.float32(y.shape[0] * y.shape[1] * y.shape[2]) / 1e6
     return rgb, mp
 
@@ -63,11 +63,9 @@ def decode_batch_step(mesh: Mesh, y, u, v, axis: str = "data"):
 def sharded_megapixels(mesh: Mesh, y, axis: str = "data"):
     """Mesh-global megapixel count of a batch-sharded (B, H, W) plane:
     each device contributes its local shard count and a ``psum`` over
-    the ``data`` axis (an ICI collective on real hardware) gives every
+    the ``data`` axis (an NCCL all-reduce across cards) gives every
     device the aggregate."""
-    from jax.experimental.shard_map import shard_map
-
-    f = jax.jit(shard_map(
+    f = jax.jit(jax.shard_map(
         lambda x: jax.lax.psum(
             jnp.float32(x.shape[0] * x.shape[1] * x.shape[2]) / 1e6,
             axis),
@@ -133,7 +131,7 @@ def _host_half_shm(args):
         return idx, None, f"{type(e).__name__}: {e}"
 
 
-def _chunk_front(mesh, images, quality, axis, fused, n_workers):
+def _chunk_front(mesh, images, quality, axis, n_workers):
     """Device front end for one chunk: sharded colorspace + (optional
     host pre-filter on a thread pool) + sharded analysis.  Returns
     (y1s, origs, u, v, pre_y, pre_u, pre_v) as host arrays."""
@@ -149,7 +147,7 @@ def _chunk_front(mesh, images, quality, axis, fused, n_workers):
 
     if quality > T.HIGH1:
         (y, u, v), pre_y, pre_u, pre_v = ds.encode_front_device(
-            rgb, quality, fused=fused)
+            rgb, quality)
         y_np = np.asarray(y)  # ONE batched gather, not b sliced transfers
         y1s = [y_np[i] for i in range(b)]
         origs = y1s
@@ -175,7 +173,7 @@ def _chunk_front(mesh, images, quality, axis, fused, n_workers):
                 mesh, y1_sh, u_sh, v_sh, quality, axis=axis)
         else:
             pre_y, pre_u, pre_v = ds.analysis_front_device(
-                y1_sh, u_sh, v_sh, quality, fused=fused)
+                y1_sh, u_sh, v_sh, quality)
         u, v = ud, vd
 
     pre_y = tuple(np.asarray(a) if a is not None else None for a in pre_y)
@@ -219,11 +217,6 @@ def encode_batch_sharded(mesh: Mesh, images: np.ndarray, quality: int = 20,
     from nhwcodec_tpu.parallel import api
 
     b = len(images)
-    # the fused Pallas stage is an opaque custom call GSPMD cannot split
-    # over a >1-device mesh; the analysis goes through shard_map instead
-    # (per-shard programs, so Mosaic kernels work per chip), and the
-    # remaining GSPMD-jit paths fall back to slice algebra
-    fused = None if mesh.size == 1 else False
     n_workers = (os.cpu_count() or 1) if workers is None else workers
     if device_pack is None:
         device_pack = jax.default_backend() != "cpu"
@@ -241,12 +234,12 @@ def encode_batch_sharded(mesh: Mesh, images: np.ndarray, quality: int = 20,
                 tuple(a[k] for a in pre_u), tuple(a[k] for a in pre_v))
 
     if device_pack or n_workers <= 1:
-        # threads: C scans release the GIL; chip packs each chunk's
+        # threads: C scans release the GIL; the device packs each chunk's
         # streams in one program
         def _run_chunk(lo):
             imgs = images[lo: lo + chunk]
             y1s, origs, u, v, pre_y, pre_u, pre_v = _chunk_front(
-                mesh, imgs, quality, axis, fused, n_workers)
+                mesh, imgs, quality, axis, n_workers)
 
             def _one(k):
                 py, pu, pv = _pre_tuples(pre_y, pre_u, pre_v, k)
@@ -294,7 +287,7 @@ def encode_batch_sharded(mesh: Mesh, images: np.ndarray, quality: int = 20,
     for lo in range(0, b, chunk):
         imgs = images[lo: lo + chunk]
         y1s, origs, u, v, pre_y, pre_u, pre_v = _chunk_front(
-            mesh, imgs, quality, axis, fused, n_workers)
+            mesh, imgs, quality, axis, n_workers)
         mp += sharded_megapixels(
             mesh, jax.device_put(np.stack(y1s),
                                  NamedSharding(mesh, P(axis))), axis)

@@ -1,5 +1,5 @@
 """E6 block_variance_avg vs an oracle build with the dead call
-re-enabled (VERDICT r2 missing item 2).
+re-enabled.
 
 The reference comments the call out (encoder/nhw_encoder.c:112), so the
 flag-gated implementation is validated against an instrumented build

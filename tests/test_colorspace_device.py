@@ -4,8 +4,8 @@ The host path (ops.colorspace) is dump-verified against the reference
 encoder; the device path must match it bit-for-bit.  The full 2^24
 exhaustive sweep per float mode lives in tools/colorspace_exhaustive.py
 (re-run on demand; ~15 min); here a structured + random slice of every
-mode runs in CI, plus whole-pipeline equality on jax (CPU by default,
-the real TPU when present)."""
+mode runs in CI, plus whole-pipeline equality on jax's CPU backend
+(chip_smoke.py sweeps all 2^24 triples on the GPU)."""
 
 import numpy as np
 import pytest

@@ -90,20 +90,3 @@ def test_rne24_pair_edges(shift_target):
     got = got_h.astype(np.uint64) << np.uint64(32) | got_l.astype(np.uint64)
     want = csd._rne_u64(vals, 24, np)
     assert np.array_equal(got, want)
-
-
-def test_down420_mxu_matches_slice_path():
-    """The MXU-matmul 4:2:0 downsample == the strided-slice reference
-    formulation (encoder/colorspace.c:220-256 semantics)."""
-    import jax
-    import jax.numpy as jnp
-
-    rng = np.random.default_rng(6)
-    c = rng.integers(0, 256, (3, 512, 512)).astype(np.uint8)
-    c[0] = 255
-    c[1, :, :2] = 255
-    c[1, :2, :] = 7
-    want = jax.jit(lambda x: csd._down420(x.astype(jnp.int32), jnp))(c)
-    got = jax.jit(lambda x: csd._down420_mxu(x, jnp))(c)
-    assert np.array_equal(np.asarray(want).astype(np.int32),
-                          np.asarray(got).astype(np.int32))

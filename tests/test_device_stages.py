@@ -61,3 +61,35 @@ def test_analysis_uv_matches_host_driver(q):
         np.testing.assert_array_equal(dj[i], jpeg)
         np.testing.assert_array_equal(dp[i], process)
         np.testing.assert_array_equal(dr[i], res256)
+
+
+@pytest.mark.parametrize("n", [128, 256, 512])
+@pytest.mark.parametrize("direction", ["analysis", "synthesis"])
+def test_level_matches_host_filterbank(direction, n):
+    """One device filterbank level (device_stages._stage_xla for the
+    analysis, device_decode._synth_level for the synthesis) equals the
+    in-place host driver on the n x n block of the plane the codec runs
+    that level in (128: UV level 2 in a 256-wide plane; 256: Y level 2
+    in a 512-wide plane; 512: Y level 1), last stage: no LL
+    transpose-back."""
+    import jax.numpy as jnp
+
+    from nhwcodec_tpu.models import device_decode as dd
+
+    w = {128: 256, 256: 512, 512: 512}[n]
+    rng = np.random.default_rng(n + len(direction))
+    blk = rng.integers(-2048, 2048, (2, n, n)).astype(np.int16)
+    if direction == "analysis":
+        got = [np.asarray(a) for a in ds._stage_xla(jnp.asarray(blk))]
+    else:
+        got = [None, np.asarray(dd._synth_level(jnp.asarray(blk)))]
+    for i in range(2):
+        jpeg = np.zeros((w, w), np.int16)
+        jpeg[:n, :n] = blk[i]
+        process = np.zeros((w, w), np.int16)
+        if direction == "analysis":
+            analysis.wavelet_analysis(jpeg, process, n, 1, 0)
+            np.testing.assert_array_equal(got[0][i], jpeg[:n, :n])
+        else:
+            analysis.wavelet_synthesis(jpeg, process, n, 1)
+        np.testing.assert_array_equal(got[1][i], process[:n, :n])

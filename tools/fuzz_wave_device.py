@@ -1,4 +1,4 @@
-"""Device-wired batch fuzz wave (VERDICT r2 item 10).
+"""Device-wired batch fuzz wave.
 
 Drives the production DEVICE paths — parallel.device_pipeline
 (device transforms + default-on device bit packing) and
@@ -12,7 +12,7 @@ set, and checks:
   vs the host decoder.
 
 Run on the CPU backend for CI determinism (JAX_PLATFORMS=cpu) or on a
-real chip.  Usage:
+GPU card.  Usage:
   python tools/fuzz_wave_device.py <seed> [n_images] [--qualities ...]
 Exit 0 iff zero mismatches.
 """
@@ -76,8 +76,8 @@ def main() -> int:
             if not np.array_equal(want_px[i], got_px[i]):
                 bad.append(("decode", q, i))
 
-        # the round-5 configurations: full-device encode scans and
-        # on-chip entropy decode
+        # the full-device configurations: device encode scans and
+        # device entropy decode
         from nhwcodec_tpu.models import device_decode as dd
         from nhwcodec_tpu.models import device_encode_scans as des
 
@@ -93,6 +93,8 @@ def main() -> int:
             tested += 1
             if not np.array_equal(want_px[i], got_px2[i]):
                 bad.append(("entropy_on_device", q, i))
+        print(f"q{q}: {tested} checks so far, {len(bad)} mismatches",
+              flush=True)
 
     print(f"device wave {seed}: {tested} checks on "
           f"{jax.default_backend()} backend, {len(bad)} mismatches")

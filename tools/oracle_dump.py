@@ -4,7 +4,7 @@ Copies the reference encoder sources into ``.oracle/src_enc`` (gitignored,
 never committed), inserts raw-binary dump hooks at pipeline stage
 boundaries, and builds ``nhw-enc-dump``.  Running it with
 ``NHW_DUMP_DIR=<dir>`` writes one ``<stage>.bin`` per hook, which the test
-suite uses to validate each TPU encoder stage in isolation
+suite uses to validate each device encoder stage in isolation
 (SURVEY.md section 4: stage-level goldens).
 
 The patcher anchors on exact source substrings; occurrence indices select
